@@ -1,32 +1,32 @@
-"""DEEP-preset decode-mask certificate (round 5).
+"""DEEP-preset decode-mask certificate for the GPU knob arms.
 
-Round 5 rebuilt the DEEP (osr 4x4, K=40, min_score=1, OSD, mf_first)
-production pipeline twice over:
+The DEEP preset (osr 4x4, K=40, min_score=1, OSD, mf_first) has two
+per-platform knobs in its path (utils/backend.py):
 
-  * OSD runs only on BP-failed candidates via a compacted while_loop
-    (FT8_OSD_GATE, ops/osd.py osd_decode_masked);
-  * the front is the dual-output Pallas kernel: Hann dB grid + boxcar
-    MF power grid in one pass, LLRs gathered from the grid
-    (FT8_MF_FRONT, ops/waterfall_pallas.py + ops/llr.py
-    extract_llrs_matched_grid).
+  * FT8_OSD_GATE: OSD only on BP-failed candidates via a compacted
+    while_loop (ops/osd.py osd_decode_masked), or on every row;
+  * FT8_MF_FRONT: matched-filter LLRs read from the boxcar power grid
+    (ops/llr.py extract_llrs_matched_grid), or gathered per candidate
+    from the raw block spectra.
 
-This harness certifies both changes against the round-4 form on the
-512-slot protocol (benchmarks/precision_masks.py convention: identical
-synthesised slot banks per arm, fixed seed, subprocess per arm because
-the knobs bind at import):
+This harness compares the arms on the 512-slot protocol
+(benchmarks/precision_masks.py convention: identical synthesised slot
+banks per arm, fixed seed, one child process per arm because the knobs
+are read when the decode traces).  The parent stays off JAX and runs
+one child at a time, so only one process uses the card:
 
-    arms:  grid_gated      (the shipping round-5 defaults)
-           spectra_gated   (round-4 front, round-5 OSD gating)
-           spectra_ungated (the full round-4 formulation)
+    arms:  grid_gated      (the GPU defaults)
+           spectra_gated   (spectra front, gated OSD)
+           spectra_ungated (spectra front, OSD on every row)
 
 Reported per (snr, arm): per-slot CORRECT-decode masks (the decode the
 user gets) and per-candidate success cells.  The certificate statistic
 is slot-mask identity vs spectra_ungated; candidate-cell diffs are
-reported honestly (borderline duplicate candidates of already-decoded
+reported too (borderline duplicate candidates of already-decoded
 signals can flip under the grid front's routing-matmul rounding).
 
 Usage: python benchmarks/deep_masks.py [--slots 512] [--out f]
-Writes benchmarks/results/deep_masks_v5e.json.
+Writes the JSON to --out (default benchmarks/results/deep_masks.json).
 """
 
 from __future__ import annotations
@@ -46,24 +46,22 @@ sys.path.insert(0, _ROOT)
 
 FS = 12000.0
 SLOT_S = 15.0
-CHUNK = 8   # front chunk width: 8 measured best for the DEEP grid
-            # front (190.6 vs 231.5 us/slot at 16, 280.9 at 32; v5e r5)
+CHUNK = 8   # front chunk width of the DEEP preset
 K = 40
 MIN_SCORE = 1.0
 BP_ITERS = 20
 SNRS = (-14.0, -20.0, -24.0)
 
 ARMS = {
-    "grid_gated": {},                                  # shipping defaults
-    "grid_bf16": {"FT8_GRID_DTYPE": "bf16"},           # bf16 grids (r5b)
+    "grid_gated": {"FT8_MF_FRONT": "grid"},
     "spectra_gated": {"FT8_MF_FRONT": "spectra"},
     "spectra_ungated": {"FT8_MF_FRONT": "spectra", "FT8_OSD_GATE": "off"},
 }
 
 
 def child(slots: int, out_path: str) -> None:
-    from ft8_demodulator_tpu.utils.cache import setup
-    setup()
+    from ft8_demodulator_tpu.utils.cache import enable_compilation_cache
+    enable_compilation_cache()
     import jax
     import jax.numpy as jnp
 
@@ -124,7 +122,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--slots", type=int, default=512)
     ap.add_argument("--out", type=str, default=os.path.join(
-        _ROOT, "benchmarks", "results", "deep_masks_v5e.json"))
+        _ROOT, "benchmarks", "results", "deep_masks.json"))
     ap.add_argument("--child-out", type=str, default=None)
     args = ap.parse_args()
 
@@ -153,7 +151,7 @@ def main() -> None:
         "protocol": f"{args.slots} identical slots x {list(SNRS)} dB, "
                     "DEEP preset (osr 4x4, K=40, min_score=1, OSD, "
                     "mf_first), decode_slots chunk 8 / bp_chunk 256",
-        "baseline_arm": "spectra_ungated (the round-4 formulation)",
+        "baseline_arm": "spectra_ungated (spectra front, OSD on every row)",
         "arms": {},
     }
     for arm, m in masks.items():

@@ -3,7 +3,7 @@
 The reference has no wall-clock numbers for `correct_frequency_drift`
 (src/ft8_tools/ft8_beacon_receiver/frequency_correction.py:118 — two full
 STFTs plus O(T) per-window sklearn regressions).  This benchmark times the
-TPU-native corrector (beacon/drift.py: argmax tracks from the block-DFT
+JAX corrector (beacon/drift.py: argmax tracks from the block-DFT
 waterfall, sliding-sum continuity variance, normal-equation polyfits,
 split-precision chirp compensation) on the reference test bench's standard
 workload — fs 32768, 568 Hz/s chirp, Es/N0 35 dB, 2 s zero-pad
@@ -27,7 +27,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ft8_demodulator_tpu.utils.cache import setup as _cache_setup  # noqa: E402
+from ft8_demodulator_tpu.utils.cache import enable_compilation_cache as _cache_setup  # noqa: E402
 
 _cache_setup()
 

@@ -11,7 +11,7 @@ production preset.  Also records the drift-rate estimate error per
 point (their plot_snr_vs_freq_error row).
 
 Usage: python benchmarks/drift_snr.py [--trials 20] [--out f]
-Prints one JSON object; commit as benchmarks/results/drift_snr_v5e.json.
+Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ft8_demodulator_tpu.utils.cache import setup as _cache_setup  # noqa: E402
+from ft8_demodulator_tpu.utils.cache import enable_compilation_cache as _cache_setup  # noqa: E402
 
 _cache_setup()
 

@@ -1,26 +1,28 @@
-"""The bf16-precision decode-mask experiment, committed (VERDICT r3 #2).
+"""Decode-mask experiment for the reduced-precision matmul defaults.
 
-Round 3 flipped the on-chip numeric defaults to single-pass bf16 for the
-DFT matmuls (ops/waterfall.py _DFT_PRECISION) and the BP routing matmuls
-(ops/ldpc_decode.py _BP_PRECISION), justified by an experiment that lived
-only in code comments.  This harness IS that experiment, reproducible:
+The DFT matmuls (ops/waterfall.py _DFT_PRECISION), the BP routing
+matmuls (ops/ldpc_decode.py _BP_PRECISION) and the LLR selection
+matmuls (ops/llr.py _LLR_PRECISION) run at DEFAULT precision — TF32
+operands on the GPU.  This harness checks that choice on the decode
+masks:
 
     512 identical noisy slots at each of -20/-21/-22 dB (fs 12 kHz cliff
     geometry, osr 2x2, K=20, 20 BP iterations), decoded under
-      a) DFT=high  BP=high      (3-pass bf16 — reference-grade numerics)
+      a) DFT=high  BP=high      (reference-grade numerics)
       b) DFT=default BP=high    (isolates the DFT knob)
       c) DFT=high  BP=default   (isolates the BP knob)
       d) DFT=default BP=default (the shipping defaults)
+      and the sync and LLR arms below,
     and the per-slot success masks compared bit-for-bit.
 
 The precision knobs bind at import (they are module constants so jit
-traces stay static), so each arm runs in a SUBPROCESS with the env vars
-set; slots are bit-identical across arms (fixed seed, synthesised on
-device by the same program).
+traces stay static), so each arm runs in a child process with the env
+vars set.  The parent process stays off JAX and runs one child at a
+time, so only one process uses the card.  Slots are bit-identical
+across arms (fixed seed, synthesised on device by the same program).
 
 Usage: python benchmarks/precision_masks.py [--slots 512] [--out f]
-Prints one JSON object; commit it as
-benchmarks/results/precision_masks_v5e.json.
+Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -65,48 +67,29 @@ ARMS = {
     "default_default": {"FT8_DFT_PRECISION": "default",
                         "FT8_BP_PRECISION": "default",
                         "FT8_LLR_PRECISION": "high"},
-    # the MXU recast of the sync stencil (ops/sync.py sync_scores_tf_mxu)
-    # on top of the shipping precision defaults: same 84 terms folded
-    # into matmuls, so this arm certifies both the accumulation-order
-    # change and the bf16 operand pass of the score matmul
+    # the matmul recast of the sync stencil (ops/sync.py
+    # sync_scores_tf_mxu) on top of the shipping precision defaults: same
+    # 84 terms folded into matmuls, so this arm certifies both the
+    # accumulation-order change and the operand rounding of the score
+    # matmul
     "sync_mxu": {"FT8_DFT_PRECISION": "default",
                  "FT8_BP_PRECISION": "default",
                  "FT8_LLR_PRECISION": "high",
                  "FT8_SYNC_BACKEND": "mxu"},
-    # the fused DFT->dB Pallas kernel (ops/waterfall_pallas.py) under
-    # the full shipping defaults (MXU sync included): certifies the
-    # kernel's MXU accumulation-split order vs the XLA matmuls
-    "dft_pallas": {"FT8_DFT_PRECISION": "default",
-                   "FT8_BP_PRECISION": "default",
-                   "FT8_LLR_PRECISION": "high",
-                   "FT8_SYNC_BACKEND": "mxu",
-                   "FT8_DFT_BACKEND": "pallas"},
-    # the FULL shipping defaults incl. LLR selection at DEFAULT (one
-    # bf16 pass on the selected dB values, ~0.1 dB -- the same rounding
-    # BP's DEFAULT applies to the very same LLRs one stage later)
+    # the FULL shipping defaults incl. LLR selection at DEFAULT (the same
+    # rounding BP's DEFAULT applies to the very same LLRs one stage later)
     "llr_default": {"FT8_DFT_PRECISION": "default",
                     "FT8_BP_PRECISION": "default",
                     "FT8_LLR_PRECISION": "default",
-                    "FT8_SYNC_BACKEND": "mxu",
-                    "FT8_DFT_BACKEND": "pallas"},
-    # round-5 bf16-grid arm: the fused kernel STORES the dB grid in
-    # bf16 (~0.25 dB quantisation; every consumer matmul casts its
-    # operands to bf16 at DEFAULT anyway, so only the stored rounding
-    # differs).  Halves the grid HBM traffic re-read by sync/select/LLR.
-    "grid_bf16": {"FT8_DFT_PRECISION": "default",
-                  "FT8_BP_PRECISION": "default",
-                  "FT8_LLR_PRECISION": "default",
-                  "FT8_SYNC_BACKEND": "mxu",
-                  "FT8_DFT_BACKEND": "pallas",
-                  "FT8_GRID_DTYPE": "bf16"},
+                    "FT8_SYNC_BACKEND": "mxu"},
 }
 
 
 def child(slots: int, out_path: str) -> None:
     """Decode the deterministic slot bank under the ambient precision env
     vars and write per-(snr, slot) success masks."""
-    from ft8_demodulator_tpu.utils.cache import setup
-    setup()
+    from ft8_demodulator_tpu.utils.cache import enable_compilation_cache
+    enable_compilation_cache()
     import jax
     import jax.numpy as jnp
 
@@ -213,7 +196,7 @@ def main() -> None:
         "snr_db": list(SNRS),
         "geometry": {"fs": FS, "osr": [2, 2], "max_candidates": K,
                      "bp_iterations": BP_ITERS, "min_score": MIN_SCORE},
-        "baseline_arm": "high_high (DFT=HIGH bf16x3, BP=HIGH bf16x3)",
+        "baseline_arm": "high_high (DFT=HIGH, BP=HIGH)",
         "arms": {},
         "wall_seconds": None,
     }

@@ -28,7 +28,7 @@ STARLINK-1030 over Delft, 437 MHz, capture fs 10 kHz decimated x5 to
 
 Usage: python benchmarks/satellite_e2e.py [--trials 10] [--cycles 8]
            [--esn0-start -26] [--esn0-stop -10] [--esn0-step 1] [--out f]
-Prints one JSON object; commit it as benchmarks/results/satellite_e2e.json.
+Prints one JSON object.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
 sys.path.insert(0, os.path.join(_ROOT, "examples"))
 
-from ft8_demodulator_tpu.utils.cache import setup as _cache_setup  # noqa: E402
+from ft8_demodulator_tpu.utils.cache import enable_compilation_cache as _cache_setup  # noqa: E402
 
 _cache_setup()
 

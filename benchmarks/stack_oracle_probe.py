@@ -30,7 +30,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ft8_demodulator_tpu.utils.cache import setup as _cache_setup  # noqa: E402
+from ft8_demodulator_tpu.utils.cache import enable_compilation_cache as _cache_setup  # noqa: E402
 
 _cache_setup()
 

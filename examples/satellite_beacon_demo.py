@@ -37,15 +37,6 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
-
-if __name__ == "__main__" and not os.environ.get("FT8_DEMO_TPU"):
-    # Must happen BEFORE any ft8_demodulator_tpu import: importing the
-    # package initializes the JAX backend (demod/decode.py materialises
-    # constants), and jax silently ignores jax_platforms updates after
-    # backend init.  The __main__ guard keeps importers (e.g.
-    # benchmarks/satellite_e2e.py) on their own platform choice.
-    jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp  # noqa: E402
 
 from ft8_demodulator_tpu.beacon import (correct_frequency_drift,  # noqa: E402

@@ -1,10 +1,10 @@
-"""ft8_demodulator_tpu: a TPU-native FT8 signal-processing framework.
+"""ft8_demodulator_tpu: an FT8 signal-processing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
 FT8 demodulator (Rintazero/ft8_demodulator): TX generation, waterfall
 demodulation with soft LDPC decoding, satellite-channel simulation, and
 frequency-drift correction — built as fixed-shape jitted kernels that batch
-and shard over TPU meshes.
+and shard over device meshes, on the CPU or NVIDIA GPUs.
 """
 
 __version__ = "0.3.0"

@@ -2,7 +2,7 @@
 
 Mirrors the reference `ft8_tools` API names, signatures and return shapes
 (src/ft8_tools/ft8_generator/__init__.py:7, ft8_demodulator/ft8_decode.py,
-ldpc_decoder.py, spectrogram_analyse.py) on top of the TPU-native
+ldpc_decoder.py, spectrogram_analyse.py) on top of the JAX
 implementation, so existing scripts can switch with an import change:
 
     from ft8_demodulator_tpu import compat as ft8_tools

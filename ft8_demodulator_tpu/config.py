@@ -44,8 +44,9 @@ class DecoderConfig(NamedTuple):
 
 # the reference's standard operating points, for convenience
 STANDARD = DecoderConfig()
-# high-sensitivity preset: measured ~1.5 dB deeper than STANDARD at the
-# fs-2kHz cliff (benchmarks/results/sensitivity_presets_v5e.json)
+# high-sensitivity preset: ~1.5 dB deeper than STANDARD at the fs-2kHz
+# cliff in an earlier round's sweep (record removed; to be measured
+# again, ROADMAP §2.6)
 DEEP_SEARCH = DecoderConfig(bins_per_tone=4, steps_per_symbol=4,
                             max_candidates=40, min_score=1.0, use_osd=True,
                             use_mf=True)

@@ -9,8 +9,8 @@ into 15-s FT8 cycles, keeps a ring of the most recent ``max_repeats``
 cycles, and after each completed cycle decodes the stack of everything in
 the ring — so a beacon too weak for any single cycle surfaces as soon as
 enough cycles have accumulated (50 %-yield deepens from −15.5 dB at R=1
-to −24.5 dB at R=8 with the coherent default; see demod/stack.py and
-benchmarks/results/stacking_snr_coherent_fs2k.json).
+to −24.5 dB at R=8 with the coherent default in an earlier round's
+sweep, benchmarks/stacking_sweep.py; see demod/stack.py).
 
 Alignment: FT8 transmissions start on the 15-s UTC cycle boundary, so a
 receiver that starts its stream on (or records the offset to) a cycle

@@ -33,6 +33,7 @@ from ..ops.waterfall import WaterfallParams, waterfall_params, waterfall_real, \
     waterfall_complex
 from ..protocol import constants as C
 from ..protocol.encode import encode_tones
+from ..utils.backend import knob
 from .types import FT8Decode, FT8DecodeStatus, FT8Message, SlotDecodeResult
 
 __all__ = ["decode_waterfall", "decode_waterfall_mf", "decode_slot",
@@ -45,25 +46,14 @@ _CRC_WEIGHTS = jnp.asarray(2 ** np.arange(C.CRC_BITS - 1, -1, -1),
 _BYTE_WEIGHTS = jnp.asarray(2 ** np.arange(7, -1, -1), dtype=jnp.int32)
 
 
-@functools.lru_cache(maxsize=None)
-def _osd_gate() -> bool:
-    """FT8_OSD_GATE: "on" (default — OSD runs only on BP-failed
-    candidates via the compacted while_loop, ops/osd.py) or "off" (the
-    pre-round-5 unconditional OSD over every row, kept for A/B and the
-    gating mask certificate)."""
-    from ..utils.backend import resolve_backend
-    return resolve_backend(
-        __import__("os").environ.get("FT8_OSD_GATE", "").lower(),
-        accel_default="on", cpu_default="on",
-        allowed=("on", "off")) == "on"
-
-
 def _crc_of_plain(plain: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
     """(K, 174) hard bits -> (computed CRC-14, embedded CRC-14) per row.
 
     DEFAULT matmul precision is exact for this GF(2) product: 0/1 operands
-    are bit-exact in bfloat16 and the MXU accumulates in float32 (integer
-    dot products <= 77 carry no rounding) — same argument as ldpc_check.
+    are exact in any reduced operand format (TF32, bf16) and the sum
+    accumulates in float32 (integer dot products <= 77 carry no
+    rounding) — same argument as ldpc_check; tests/test_gpu.py asserts
+    it on the card.
     """
     bits77 = plain[:, : C.PAYLOAD_BITS].astype(jnp.float32)
     crc_bits = jnp.mod(
@@ -120,7 +110,7 @@ def finish_decode(llrs: jnp.ndarray, abs_time: jnp.ndarray,
     if use_osd:
         bp_crc_calc, bp_crc_ext = _crc_of_plain(plain)
         bp_success = (ldpc_errors == 0) & (bp_crc_calc == bp_crc_ext)
-        if _osd_gate():
+        if knob("FT8_OSD_GATE") == "on":
             # OSD only the candidates BP could not crack (and only real
             # candidates): rows that already validated — at operating
             # SNRs that is most of the group — skip the GF(2)
@@ -302,59 +292,27 @@ def decode_slot(wave: jnp.ndarray, p: WaterfallParams, num_frames: int,
     matched-filter LLRs in a SINGLE BP(+OSD) pass instead of Hann-LLR
     decode + MF retry.  For real input on the block-DFT backend the
     hop-block spectra are computed once and feed both the dB waterfall
-    (sync/search) and the boxcar symbol DFTs (ops/llr.py
-    extract_llrs_matched_blocks); other inputs route through
-    decode_waterfall_mf (same single-pass semantics).
+    (sync/search) and the matched-filter LLRs (_front_slot_tf); other
+    inputs route through decode_waterfall_mf (same single-pass
+    semantics).
 
     mf_refine layers the sub-grid (dt, df) offset search over whichever
     MF stage runs (ops/llr.py extract_llrs_matched_refined) — recovers
     the boxcar's off-grid quantisation loss (up to ~3 dB at grid-cell
     corners) on real-world signals.
     """
-    from ..ops.waterfall import (_block_spectrum, _block_waterfall_tf,
-                                 _pick_backend)
+    from ..ops.waterfall import _pick_backend
 
     g = search_grid(p.num_freq_bins, num_frames, p.time_osr, p.freq_osr)
     res = None
     if not is_complex and _pick_backend(p, None) == "block" \
             and not (mf_first and mf_refine):
         # time-major fast path: the waterfall's native (T, F) layout is
-        # kept through sync -> top-k -> LLRs (frequency = lane axis; the
-        # (F, T) stencil measured ~3.4x slower on v5e) — every stage
-        # bit-identical to the (F, T) pipeline, tests/test_tf_layout.py
-        use_mf_grid = mf_first and _use_fused_mf(p)
-        if use_mf_grid:
-            # round 5: one Pallas pass emits the dB grid AND the boxcar
-            # MF power grid; LLRs gather from the grid (see decode_slots)
-            from ..ops.waterfall_pallas import \
-                block_waterfall_mf_tf_fused_batch
-            mag_b, box_b = block_waterfall_mf_tf_fused_batch(
-                wave[None], p, num_frames, _out_dtype=_grid_dtype())
-            mag_tf, box_tf = mag_b[0], box_b[0]
-        elif mf_first or not _use_fused_waterfall(p):
-            # spectra-path mf_first reuses the raw block spectra for the
-            # MF symbol DFTs, so the grid-only kernel does not apply
-            spec = _block_spectrum(wave, p, num_frames)
-            mag_tf = _block_waterfall_tf(spec, p, num_frames)
-        else:
-            from ..ops.waterfall_pallas import \
-                block_waterfall_tf_fused_batch
-            mag_tf = block_waterfall_tf_fused_batch(
-                wave[None], p, num_frames, _out_dtype=_grid_dtype())[0]
-        scores = sync_scores_tf(mag_tf, g)
-        abs_time, abs_freq, score, cand_valid = find_candidates_tf(
-            scores, g, max_candidates, min_score)
-        if use_mf_grid:
-            from ..ops.llr import extract_llrs_matched_grid
-            llrs = extract_llrs_matched_grid(
-                box_tf, abs_time, abs_freq, g.time_osr, g.freq_osr)
-        elif mf_first:
-            llrs = extract_llrs_matched_blocks(
-                spec[0], spec[1], abs_time, abs_freq, g.time_osr,
-                g.freq_osr)
-        else:
-            llrs = extract_llrs_tf(mag_tf, abs_time, abs_freq, g.time_osr,
-                                   g.freq_osr, g.num_blocks)
+        # kept through sync -> top-k -> LLRs (frequency = minor axis) —
+        # every stage bit-identical to the (F, T) pipeline,
+        # tests/test_tf_layout.py
+        llrs, abs_time, abs_freq, score, cand_valid = _front_slot_tf(
+            wave, p, num_frames, g, max_candidates, min_score, mf_first)
         res = finish_decode(llrs, abs_time, abs_freq, score, cand_valid,
                             max_iterations, use_osd)
         if not mf_first and use_mf:
@@ -382,92 +340,39 @@ def decode_slot(wave: jnp.ndarray, p: WaterfallParams, num_frames: int,
     return res
 
 
-def _front_from_mag_tf(mag_tf: jnp.ndarray, g: SearchGrid,
-                       max_candidates: int, min_score: float):
-    """Time-major dB grid -> sync -> top-K -> LLRs (no BP)."""
-    scores = sync_scores_tf(mag_tf, g)
-    abs_time, abs_freq, score, cand_valid = find_candidates_tf(
-        scores, g, max_candidates, min_score)
-    llrs = extract_llrs_tf(mag_tf, abs_time, abs_freq, g.time_osr,
-                           g.freq_osr, g.num_blocks)
-    return llrs, abs_time, abs_freq, score, cand_valid
-
-
 def _front_slot_tf(wave: jnp.ndarray, p: WaterfallParams, num_frames: int,
-                   g: SearchGrid, max_candidates: int, min_score: float):
+                   g: SearchGrid, max_candidates: int, min_score: float,
+                   mf_first: bool = False):
     """One slot's decode front half on the time-major fast path:
-    spectra -> dB grid -> sync -> top-K -> LLRs (no BP)."""
-    from ..ops.waterfall import _block_spectrum, _block_waterfall_tf
+    spectra -> dB grid -> sync -> top-K -> LLRs (no BP).
+
+    mf_first takes matched-filter LLRs instead of Hann-waterfall reads,
+    from the boxcar power grid or the raw block spectra as the
+    FT8_MF_FRONT knob says (utils/backend.py).  Both grids derive from
+    the one block spectrum, so XLA can emit them from one fusion: the
+    boxcar symbol DFT at window start t0 IS the Hann combine's value
+    before the 3-tap stencil (ops/waterfall.py _block_boxcar_tf).
+    """
+    from ..ops.llr import extract_llrs_matched_grid
+    from ..ops.waterfall import (_block_boxcar_tf, _block_spectrum,
+                                 _block_waterfall_tf)
 
     spec = _block_spectrum(wave, p, num_frames)
     mag_tf = _block_waterfall_tf(spec, p, num_frames)
-    return _front_from_mag_tf(mag_tf, g, max_candidates, min_score)
-
-
-_DFT_BACKEND_ENV = __import__("os").environ.get(
-    "FT8_DFT_BACKEND", "").lower()
-
-
-@functools.lru_cache(maxsize=None)
-def _dft_backend() -> str:
-    """Waterfall front-end for decode_slots: "xla" (spectra + epilogue
-    fusions) or "pallas" (ops/waterfall_pallas.py fused kernel, spectra
-    never leave VMEM).  FT8_DFT_BACKEND overrides; by default pallas is
-    used on TPU (bench.py A/B: see DESIGN_NOTES round 4) and xla on CPU
-    (interpret-mode pallas there is for tests only)."""
-    from ..utils.backend import resolve_backend
-    return resolve_backend(_DFT_BACKEND_ENV, accel_default="pallas",
-                           cpu_default="xla", allowed=("pallas", "xla"))
-
-
-@functools.lru_cache(maxsize=32)
-def _use_fused_waterfall(p: WaterfallParams) -> bool:
-    """The fused kernel serves this decode only when the backend
-    preference says pallas AND the geometry fits its VMEM budget
-    (fused_waterfall_ok: e.g. fs >= 20 kHz at osr 2x2 overflows the
-    resident-matrix budget and falls back to the XLA pair)."""
-    if _dft_backend() != "pallas":
-        return False
-    from ..ops.waterfall_pallas import fused_waterfall_ok
-    return fused_waterfall_ok(p)
-
-
-_MF_FRONT_ENV = __import__("os").environ.get("FT8_MF_FRONT", "").lower()
-_GRID_DTYPE_ENV = __import__("os").environ.get("FT8_GRID_DTYPE", "").lower()
-
-
-@functools.lru_cache(maxsize=1)
-def _grid_dtype() -> str:
-    """Precision of the fused kernels' output grids: "f32" (default) or
-    "bf16" (experiment knob — halves the grid HBM traffic that the
-    sync/select/LLR stages re-read; every grid consumer is a DEFAULT-
-    precision matmul whose operands get bf16-cast anyway, so the only
-    numeric change is dB-value rounding ~0.25 dB, the same class as the
-    certified one-pass arms).  FT8_GRID_DTYPE overrides."""
-    from ..utils.backend import resolve_backend
-    return resolve_backend(_GRID_DTYPE_ENV, accel_default="f32",
-                           cpu_default="f32", allowed=("f32", "bf16"))
-
-
-@functools.lru_cache(maxsize=32)
-def _use_fused_mf(p: WaterfallParams) -> bool:
-    """mf_first front-end: "grid" (TPU default since round 5 — the
-    dual-output Pallas kernel emits the Hann dB grid AND the boxcar MF
-    power grid in one pass, ops/waterfall_pallas.py; LLRs gather from
-    the grid) or "spectra" (materialised block spectra + per-candidate
-    column gathers, the round-4 form and the CPU default).  Measured at
-    the DEEP geometry the spectra epilogue alone ran at ~16 % of its
-    HBM bound and the gathers cost 130 us/slot; FT8_MF_FRONT overrides.
-    """
-    from ..utils.backend import resolve_backend
-    if resolve_backend(_MF_FRONT_ENV, accel_default="grid",
-                       cpu_default="spectra",
-                       allowed=("grid", "spectra")) != "grid":
-        return False
-    if _dft_backend() != "pallas":
-        return False
-    from ..ops.waterfall_pallas import fused_mf_waterfall_ok
-    return fused_mf_waterfall_ok(p, out_dtype=_grid_dtype())
+    scores = sync_scores_tf(mag_tf, g)
+    abs_time, abs_freq, score, cand_valid = find_candidates_tf(
+        scores, g, max_candidates, min_score)
+    if not mf_first:
+        llrs = extract_llrs_tf(mag_tf, abs_time, abs_freq, g.time_osr,
+                               g.freq_osr, g.num_blocks)
+    elif knob("FT8_MF_FRONT") == "grid":
+        llrs = extract_llrs_matched_grid(
+            _block_boxcar_tf(spec, p, num_frames), abs_time, abs_freq,
+            g.time_osr, g.freq_osr)
+    else:
+        llrs = extract_llrs_matched_blocks(
+            spec[0], spec[1], abs_time, abs_freq, g.time_osr, g.freq_osr)
+    return llrs, abs_time, abs_freq, score, cand_valid
 
 
 @functools.partial(jax.jit, static_argnames=(
@@ -487,14 +392,11 @@ def decode_slots(waves: jnp.ndarray, p: WaterfallParams, num_frames: int,
       pieces under one ``lax.map`` — XLA's fusions for the stencil and
       selection stages are markedly better at small widths;
     * LDPC BP + CRC run over groups of `bp_chunk` slots (bp_chunk * K
-      candidate rows at once).  BP's routing matmuls are far off their
-      MXU roofline at front-chunk width (320 rows: ~15 us/slot on v5e)
-      and ~2.5x faster at ~5k rows — but the while-loop's all-halted
-      early exit waits for the SLOWEST row in the group, so past ~256
-      slots the extra iterations cost more than the width gains
-      (measured 12.6k slots/s with one flat 20480-row group vs 13.9k
-      fused at batch 1024).  256 slots/group is the measured sweet
-      spot.
+      candidate rows at once).  BP's routing matmuls want many rows,
+      but the while-loop's all-halted early exit waits for the SLOWEST
+      row in the group, so a wider group also pays more iterations.
+      The chunk sizes are inherited defaults, not yet tuned on the
+      GPU.
 
     Falls back to chunked ``vmap(decode_slot)`` when the block fast
     path does not apply (non-block STFT geometry).  B must be a
@@ -517,67 +419,10 @@ def decode_slots(waves: jnp.ndarray, p: WaterfallParams, num_frames: int,
             lambda x: x.reshape(b, *x.shape[2:]), res)
 
     g = search_grid(p.num_freq_bins, num_frames, p.time_osr, p.freq_osr)
-    if mf_first and _use_fused_mf(p):
-        # the DEEP production form since round 5: ONE Pallas pass emits
-        # the Hann dB grid (sync/search) and the boxcar MF power grid;
-        # LLRs are two routing matmuls on the boxcar grid — the round-4
-        # form's materialised spectra + per-candidate column gathers
-        # measured 197 + 130 us/slot at the DEEP geometry
-        from ..ops.llr import extract_llrs_matched_grid
-        from ..ops.waterfall_pallas import \
-            block_waterfall_mf_tf_fused_batch
-
-        def front_chunk(wchunk):
-            mags, boxes = block_waterfall_mf_tf_fused_batch(
-                wchunk, p, num_frames, _out_dtype=_grid_dtype())
-
-            def rest(m, bx):
-                scores = sync_scores_tf(m, g)
-                abs_time, abs_freq, sc, ok = find_candidates_tf(
-                    scores, g, max_candidates, min_score)
-                llr = extract_llrs_matched_grid(
-                    bx, abs_time, abs_freq, g.time_osr, g.freq_osr)
-                return llr, abs_time, abs_freq, sc, ok
-
-            return jax.vmap(rest)(mags, boxes)
-
-        llrs, abs_time, abs_freq, score, cand_valid = jax.lax.map(
-            front_chunk, chunked)
-    elif mf_first:
-        # single-pass matched-filter LLRs off the raw block spectra,
-        # then the SAME flat split-BP(+OSD) tail as the plain path —
-        # the batched tail is where the DEEP preset's per-slot
-        # structure was leaving BP/OSD matmul width on the table
-        from ..ops.waterfall import _block_spectrum, _block_waterfall_tf
-
-        def front_mf(w):
-            spec = _block_spectrum(w, p, num_frames)
-            mag_tf = _block_waterfall_tf(spec, p, num_frames)
-            scores = sync_scores_tf(mag_tf, g)
-            abs_time, abs_freq, sc, ok = find_candidates_tf(
-                scores, g, max_candidates, min_score)
-            llr = extract_llrs_matched_blocks(
-                spec[0], spec[1], abs_time, abs_freq, g.time_osr,
-                g.freq_osr)
-            return llr, abs_time, abs_freq, sc, ok
-
-        llrs, abs_time, abs_freq, score, cand_valid = jax.lax.map(
-            jax.vmap(front_mf), chunked)
-    elif _use_fused_waterfall(p):
-        from ..ops.waterfall_pallas import block_waterfall_tf_fused_batch
-
-        def front_chunk(wchunk):
-            mags = block_waterfall_tf_fused_batch(
-                wchunk, p, num_frames, _out_dtype=_grid_dtype())
-            return jax.vmap(lambda m: _front_from_mag_tf(
-                m, g, max_candidates, min_score))(mags)
-
-        llrs, abs_time, abs_freq, score, cand_valid = jax.lax.map(
-            front_chunk, chunked)
-    else:
-        llrs, abs_time, abs_freq, score, cand_valid = jax.lax.map(
-            jax.vmap(lambda w: _front_slot_tf(
-                w, p, num_frames, g, max_candidates, min_score)), chunked)
+    llrs, abs_time, abs_freq, score, cand_valid = jax.lax.map(
+        jax.vmap(lambda w: _front_slot_tf(
+            w, p, num_frames, g, max_candidates, min_score, mf_first)),
+        chunked)
 
     bp_chunk = min(bp_chunk, b)
     while b % bp_chunk:

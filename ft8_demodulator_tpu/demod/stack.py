@@ -282,8 +282,8 @@ def decode_ft8_stacked(waves, sample_rate: float,
     decode_ft8_message; time/frequency are relative to the common slot.
 
     Measured gain over the best single-slot path (OSD + MF) at fs 2 kHz:
-    see benchmarks/results/stacking_snr_fs2k.json and
-    docs/DESIGN_NOTES.md ("Cross-transmission stacking").
+    see docs/DESIGN_NOTES.md ("Cross-transmission stacking") and
+    benchmarks/stacking_sweep.py.
 
     ap: a-priori hypotheses exactly as in decode_ft8_message — a beacon's
     callsign is usually KNOWN, and clamping it stacks on top of the

@@ -1,6 +1,6 @@
 """GFSK modulator: tone ids -> phase-continuous complex baseband.
 
-TPU-first formulation.  The reference builds the instantaneous-frequency
+Vectorised formulation.  The reference builds the instantaneous-frequency
 track with a per-sample double loop and accumulates phase with `math.fmod`
 one sample at a time (src/ft8_tools/ft8_generator/modulator.py:27,56) — about
 1.5e5 Python iterations per message.  Here the track is three outer products
@@ -26,10 +26,11 @@ waveform bit-for-bit (compat.py uses it; the goldens validate both
 paths — the fixed track equals the same reference track read at the
 WSJT-X offset).
 
-Complex-at-the-boundary rule: this TPU backend cannot transfer complex
-arrays between host and device (complex *compute* inside jit is fine), so
-every jitted entry point here returns complex signals as a stacked
-``(..., n, 2)`` float32 [real, imag] array.  ``ft8_baseband`` combines the
+Complex-at-the-boundary rule: every jitted entry point here returns
+complex signals as a stacked ``(..., n, 2)`` float32 [real, imag] array
+(complex *compute* inside jit is unaffected) — a convention from an
+earlier backend that could not transfer complex arrays; ROADMAP §3.7
+weighs dropping it.  ``ft8_baseband`` combines the
 pair into numpy complex on the host for API convenience.
 """
 

@@ -1,4 +1,4 @@
-"""LDPC(174,91) sum-product belief propagation, batched and TPU-shaped.
+"""LDPC(174,91) sum-product belief propagation, batched.
 
 The reference decoder (src/ft8_tools/ft8_demodulator/ldpc_decoder.py:54)
 runs a Python triple loop per iteration with data-dependent early exit.
@@ -10,10 +10,10 @@ message arrays:
   block of all 83 checks is contiguous), so per-slot views are static
   contiguous slices — no reshapes, no relayouts;
 * routing between the two layouts is three constant 0/1 one-hot matrices
-  applied as HIGHEST-precision matmuls on the MXU (exact: one unit entry
-  per output column).  Measured ~15x faster than minor-axis index gathers
-  on TPU v5e — XLA lowers small-axis gathers poorly, while (B, 522/581) x
-  (522/581, 581/522) matmuls are a natural MXU shape;
+  applied as matmuls (exact routing: one unit entry per output column)
+  in place of minor-axis index gathers — wide (B, 522/581) x
+  (522/581, 581/522) products (their A/B against gathers on the GPU is
+  open, ROADMAP §1.5);
 * the leave-one-out product over each check's <=7 slots is an unrolled
   exclusive prefix/suffix product over 7 contiguous (..., 83) blocks —
   exact, no division;
@@ -29,7 +29,7 @@ reproduced with a "halted" mask:
 * otherwise min_errors tracks the best syndrome weight seen.
 
 tanh/atanh use the same rational (Pade) approximations as the reference —
-division+multiply only, ideal for the VPU.
+division+multiply only.
 """
 
 from __future__ import annotations
@@ -97,11 +97,11 @@ _M_LOO = jnp.asarray(_build_leave_one_out())                  # (522, 581)
 
 
 # Routing-matmul precision.  The routing matrices are 0/+-1 (exact at any
-# precision); the passes only round the message VALUES.  DEFAULT (bf16x1,
-# one MXU pass) rounds messages to ~4e-3 relative — far inside BP's
-# robustness margin (hardware decoders run 4-6 bit messages), measured
-# decode-set-identical to HIGH/HIGHEST at the sensitivity cliff and 3x
-# fewer MXU passes.  Override with FT8_BP_PRECISION=high|highest.
+# precision); the operand format only rounds the message VALUES.  DEFAULT
+# (TF32 operands on the GPU, ~1e-3 relative; bf16 elsewhere, ~4e-3) is
+# far inside BP's robustness margin (hardware decoders run 4-6 bit
+# messages) and was decode-set-identical to HIGH/HIGHEST at the
+# sensitivity cliff.  Override with FT8_BP_PRECISION=high|highest.
 _BP_PRECISION = {
     "highest": jax.lax.Precision.HIGHEST,
     "high": jax.lax.Precision.HIGH,
@@ -139,10 +139,10 @@ def ldpc_check(plain: jnp.ndarray) -> jnp.ndarray:
     """(..., 174) hard bits -> number of failed parity checks.
 
     DEFAULT precision is EXACT here, not an approximation: both operands
-    are 0/1 (bit-exact in bfloat16) and the MXU accumulates partial sums
-    in float32, so the dot products (integers <= check degree 7) carry no
-    rounding at any precision.  One MXU pass instead of HIGHEST's six —
-    this matmul runs inside every BP iteration.
+    are 0/1 (exact in TF32 and bf16) and partial sums accumulate in
+    float32, so the dot products (integers <= check degree 7) carry no
+    rounding at any precision (tests/test_gpu.py asserts it on the
+    card) — and this matmul runs inside every BP iteration.
     """
     syndrome = jnp.mod(
         jnp.matmul(plain.astype(jnp.float32), _PARITY_T,

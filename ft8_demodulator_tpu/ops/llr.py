@@ -30,12 +30,13 @@ _GRAY = jnp.asarray(C.GRAY_MAP)
 # Precision of the two one-hot SELECTION matmuls in the decode hot path
 # (extract_llrs / extract_llrs_tf).  The routing is exact at any
 # precision (one nonzero per row); the precision only sets how the
-# SELECTED dB values round through the MXU: HIGH carries ~16 mantissa
-# bits (<2e-3 dB perturbation), DEFAULT one bf16 pass (~0.1 dB at
-# waterfall magnitudes) — the same order as the BP routing matmuls'
-# DEFAULT rounding of the very same LLRs one stage later, and the
-# decode masks are measured IDENTICAL at the cliff
-# (benchmarks/results/precision_masks_v5e.json, llr_default arm).
+# SELECTED dB values round through the operand format: DEFAULT is TF32
+# on the GPU (~0.02 dB at waterfall magnitudes; one bf16 pass elsewhere,
+# ~0.1 dB) — the same order as the BP routing matmuls' DEFAULT rounding
+# of the very same LLRs one stage later, and the decode masks were
+# identical at the cliff (benchmarks/precision_masks.py, llr_default
+# arm).  What XLA:GPU does with HIGH is measured by tests/gpu_checks.py
+# check_precision_high.
 # Override with FT8_LLR_PRECISION={default,high,highest}.
 _LLR_PRECISION = getattr(
     jax.lax.Precision,
@@ -65,13 +66,12 @@ def extract_llrs(mag: jnp.ndarray, abs_time: jnp.ndarray,
     """Waterfall (F, T) + candidates (K,) -> LLRs (K, 174), normalised.
 
     abs_time may be negative (pre-roll); symbols falling outside the
-    waterfall get LLR 0.  TPU notes: the frequency reads collapse into ONE
-    one-hot matmul with a merged (K*8) M-dimension (per-candidate batched
-    matmuls with M=8 waste >90% of the MXU and measure ~5x slower); the
-    time reads are a K-batched one-hot matmul over the frame axis —
-    measured 5.6 % faster end-to-end than a minor-axis take_along_axis
-    (which lowered to a gather + layout copy worth ~7 % of device time),
-    and ~100x faster than scattered (58, 8) 2-D index-pair gathers.
+    waterfall get LLR 0.  The frequency reads collapse into ONE one-hot
+    matmul with a merged (K*8) M-dimension (not per-candidate batched
+    matmuls with M=8); the time reads are a K-batched one-hot matmul over
+    the frame axis in place of a minor-axis take_along_axis or scattered
+    (58, 8) index-pair gathers.  Their A/B against gathers on the GPU is
+    open (ROADMAP §1.6).
     """
     tau, phi = time_osr, freq_osr
     num_freqs, num_frames = mag.shape
@@ -79,8 +79,8 @@ def extract_llrs(mag: jnp.ndarray, abs_time: jnp.ndarray,
     sym = jnp.asarray(C.DATA_SYMBOL_POSITIONS)            # (58,)
 
     # frequency select: one (K*8, F) one-hot matmul against the waterfall
-    # (per-candidate batched matmuls with M=8 waste >90% of the MXU and
-    # measure ~5x slower).  Precision: the _LLR_PRECISION note above.
+    # (not per-candidate batched matmuls with M=8).  Precision: the
+    # _LLR_PRECISION note above.
     f_idx = (abs_freq[:, None] + jnp.arange(8) * phi).reshape(k * 8)
     f_hot = (f_idx[:, None] == jnp.arange(num_freqs)).astype(jnp.float32)
     rows = jnp.matmul(f_hot, mag,
@@ -247,8 +247,8 @@ def extract_llrs_matched_blocks(spec_re: jnp.ndarray, spec_im: jnp.ndarray,
     with period phi*tau).  So the matched filter costs one tiny column
     gather + a (tau, 8) phase combine per candidate, reusing the DFT
     matmul the decoder already ran — no windows, no pads, no skinny
-    matmuls (the direct form's (K*58, sps)x(sps, 8) tone matmuls wasted
-    15/16 of every MXU pass and dominated the deep-mode profile).
+    matmuls (the direct form's (K*58, sps)x(sps, 8) tone matmuls are
+    skinny and dominated an earlier deep-mode profile).
 
     spec_re/spec_im: (nb, Kx) block spectra with Kx = nfft//2 + 2*phi
     extended columns (col = bin + phi).  Bit-equivalent to the direct

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..protocol import constants as C
+from ..utils.backend import knob
 
 __all__ = ["SearchGrid", "search_grid", "sync_scores", "sync_scores_tf",
            "sync_scores_z", "find_candidates", "find_candidates_tf"]
@@ -113,12 +114,11 @@ def sync_scores(mag: jnp.ndarray, g: SearchGrid) -> jnp.ndarray:
     return _sync_scores_impl(mag, g)
 
 
-# Stencil read dtype — float32.  A bfloat16 grid was tried to halve the
-# stencil's HBM traffic (VERDICT r2 next #1): decode masks were identical
-# at -20/-21/-22 dB (512 slots each), but throughput DROPPED 6 % (105.4
-# -> 111.5 us/slot on v5e) — the cast materialises an extra copy and the
-# odd-offset bf16 slices break XLA's (16, 128)-tiled vectorised loads.
-# Kept as a knob for re-testing on future toolchains.
+# Stencil read dtype — float32.  A bfloat16 grid halves the stencil's
+# memory traffic and left decode masks identical at -20/-21/-22 dB
+# (512 slots each) on an earlier platform, where it was nevertheless
+# slower (the cast materialises an extra copy).  Kept as a knob for
+# re-testing on the GPU.
 _SYNC_DTYPE = {
     "bfloat16": jnp.bfloat16,
     "float32": jnp.float32,
@@ -182,21 +182,22 @@ def sync_scores_tf(mag_tf: jnp.ndarray, g: SearchGrid) -> jnp.ndarray:
 
     Bit-identical to ``sync_scores(mag_tf.T, g).T`` — the same 84 masked
     terms added in the same order per element — but laid out with FREQUENCY
-    as the minor (lane) axis.  At the 12 kHz geometry that axis is 1906
-    wide (15 full 128-lane vector tiles, stencil offsets are small even
-    lane shifts) where the (F, T) orientation's minor axis is only 88-206
-    wide (one ragged tile, stencil offsets straddle the 8-row sublane
-    tiling) — measured ~3.4x faster on v5e (see DESIGN_NOTES round 4).
+    as the minor axis.  At the 12 kHz geometry that axis is 1906
+    wide (stencil offsets are small shifts along it) where the (F, T)
+    orientation's minor axis is only 88-206
+    wide, so the (T, F) layout keeps the stencil's shifted slices long
+    and contiguous.
 
     The pre-roll/main split follows sync_scores: left-padding only a small
     leading time slice keeps the main body reading the unpadded grid.
 
-    On TPU this routes to :func:`sync_scores_tf_mxu` by default (stencil
-    folded into per-residue matmuls; same scores up to accumulation
-    order — see the MXU-recast comment block below); on CPU the exact
-    stencil stays the default.  FT8_SYNC_BACKEND overrides either way.
+    On the GPU this routes to :func:`sync_scores_tf_mxu` by default
+    (stencil folded into per-residue matmuls; same scores up to
+    accumulation order — see the matmul-recast comment block below); on
+    the CPU the exact stencil stays the default.  The FT8_SYNC_BACKEND
+    knob (utils/backend.py) overrides either way.
     """
-    if _sync_backend() == "mxu" and g.num_times > 0:
+    if knob("FT8_SYNC_BACKEND") == "mxu" and g.num_times > 0:
         return sync_scores_tf_mxu(mag_tf, g)
     main_cols = g.num_times + g.t_start
     main_right_pad = main_cols + (C.NUM_SYMBOLS - 1) * g.time_osr \
@@ -263,7 +264,7 @@ def _sync_scores_tf_impl(mag_tf: jnp.ndarray, g: SearchGrid) -> jnp.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# MXU recast of the sync stencil (time-major layout)
+# Matmul recast of the sync stencil (time-major layout)
 # ---------------------------------------------------------------------------
 # The 84 masked stencil terms are all LINEAR in the grid, and every term's
 # time offset (left + t_start + b*tau, b' in {b-1, b, b+1}) shares one
@@ -273,39 +274,24 @@ def _sync_scores_tf_impl(mag_tf: jnp.ndarray, g: SearchGrid) -> jnp.ndarray:
 #     M_s = W_s @ P_s        W_s: (8*n_out, n_in)   P_s: (n_in, kx)
 #     S[s::tau, f] = sum_df M_s[df*n_out + o, f + df*phi]
 #
-# The dB grid is read ONCE from HBM per residue (vs ~84 shifted VPU reads,
-# each unaligned lane access costing a vector rotate), the masks are baked
-# into W on the host (exact), and the df combination is 8 lane-shifted
-# adds fused into the matmul epilogue.  ~0.33 GFLOP/slot on the MXU
-# replaces ~0.09 GFLOP/slot of rotate-heavy VPU work.
+# The dB grid is read ONCE per residue (vs ~84 shifted elementwise
+# reads), the masks are baked into W on the host (exact), and the df
+# combination is 8 shifted adds fused into the matmul epilogue: ~0.33
+# GFLOP/slot of matmul replaces ~0.09 GFLOP/slot of shifted adds.
 #
-# NOT bit-identical to the stencil (matmul accumulation order + one bf16
-# operand pass at DEFAULT); decode-mask equivalence at cliff SNRs is the
-# acceptance evidence: per-slot decode masks IDENTICAL to the 3-pass
-# bf16 stencil baseline over 512 slots at each of -20/-21/-22 dB on v5e
-# (benchmarks/results/precision_masks_v5e.json, sync_mxu arm), and the
-# whole decode pipeline runs 1.5x faster (bench.py: 15,780 -> 23,687
-# slots/s at 1024/1024 yield).  Default on TPU; the CPU default stays
-# the stencil, which is exact f32 there and keeps the bit-identical
-# (F, T)/(T, F) parity guarantee the CPU tests pin.  Override with
-# FT8_SYNC_BACKEND={stencil,mxu}; precision via FT8_SYNC_MXU_PRECISION.
+# NOT bit-identical to the stencil (matmul accumulation order and the
+# operand rounding of DEFAULT precision — TF32 on the GPU); decode-mask
+# equivalence at cliff SNRs is the acceptance evidence
+# (benchmarks/precision_masks.py, sync_mxu arm).  The GPU default; the
+# CPU default stays the stencil, which is exact f32 there and keeps the
+# bit-identical (F, T)/(T, F) parity guarantee the CPU tests pin.  Its
+# A/B on the GPU is still open.  Override with the FT8_SYNC_BACKEND knob
+# (utils/backend.py); precision via FT8_SYNC_MXU_PRECISION.
 
-_SYNC_BACKEND_ENV = __import__("os").environ.get(
-    "FT8_SYNC_BACKEND", "").lower()
 _SYNC_MXU_PRECISION = getattr(
     jax.lax.Precision,
     __import__("os").environ.get("FT8_SYNC_MXU_PRECISION",
                                  "default").upper())
-
-
-@functools.lru_cache(maxsize=None)
-def _sync_backend() -> str:
-    """Resolved sync backend (lazy: jax.default_backend() initialises the
-    platform, which must not happen at library import)."""
-    from ..utils.backend import resolve_backend
-    return resolve_backend(_SYNC_BACKEND_ENV, accel_default="mxu",
-                           cpu_default="stencil",
-                           allowed=("mxu", "stencil"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -378,7 +364,7 @@ def _sync_mxu_weights(g: SearchGrid, num_frames: int):
 
 @functools.partial(jax.jit, static_argnames=("g",))
 def sync_scores_tf_mxu(mag_tf: jnp.ndarray, g: SearchGrid) -> jnp.ndarray:
-    """TIME-MAJOR waterfall (T, F) -> sync score grid via MXU matmuls.
+    """TIME-MAJOR waterfall (T, F) -> sync score grid via matmuls.
 
     Same scores as :func:`sync_scores_tf` up to matmul accumulation order
     (and one bf16 operand pass at DEFAULT precision); see the module
@@ -496,12 +482,12 @@ def find_candidates(scores: jnp.ndarray, g: SearchGrid, max_candidates: int,
     descending score, matching the reference's heap selection
     (ft8_decode.py:127-147) up to tie order.
 
-    TPU note: exact row-max screening — at most K distinct frequency rows
+    Exact row-max screening — at most K distinct frequency rows
     can contain the global top-K (each such row's maximum is itself one of
     the >= K-th-largest scores), so one cheap max-reduction over time picks
     the candidate rows, and the flat top-K runs over only those few rows.
-    A small slack absorbs exact-value ties.  Measured far faster than both
-    a flat top_k over the full grid and a per-row top-K on v5e.
+    A small slack absorbs exact-value ties, and the flat top-K never
+    scans the full grid.
     """
     masked = jnp.where(scores >= min_score, scores, -jnp.inf)
     num_freqs, num_times = masked.shape
@@ -527,7 +513,7 @@ def find_candidates_tf(scores_tf: jnp.ndarray, g: SearchGrid,
     """find_candidates on a TIME-MAJOR (num_times, num_freqs) score grid.
 
     Returns what ``find_candidates(scores_tf.T, ...)`` returns, up to
-    exact-value ties: the row screen reduces over the time (sublane)
+    exact-value ties: the row screen reduces over the time (major)
     axis to the same per-frequency maxima, and the flat top-k runs over
     the small screened submatrix TRANSPOSED back to (rows, T) so flat
     indices (and therefore jax.lax.top_k's lowest-index tie-breaking)
@@ -550,12 +536,10 @@ def find_candidates_tf(scores_tf: jnp.ndarray, g: SearchGrid,
         row_max = jnp.max(masked, axis=-2)             # (F,)
         _, rows = jax.lax.top_k(row_max, rows_needed)  # candidate freqs
         # screened (rows_needed, T) submatrix via an EXACT one-hot
-        # routing matmul instead of a lane-axis gather (measured 12.3
-        # vs 18.2 us/slot through the select stage at the DEEP grid —
-        # minor-axis gathers are XLA's slow path on TPU).  HIGHEST
-        # splits each f32 score into three exact bf16 terms and the
-        # one-hot dot sums exactly one such triple: bit-exact
-        # selection.  -inf cells become -1e30 first (-inf * 0 = NaN
+        # routing matmul instead of a minor-axis gather.  HIGHEST keeps
+        # full f32 operands and the one-hot dot sums exactly one
+        # product: bit-exact selection (tests/test_gpu.py asserts it
+        # equals a gather on the card).  -inf cells become -1e30 first (-inf * 0 = NaN
         # would poison the products) and are restored after the top-k;
         # no genuine score approaches -1e30 (bounded dB contrasts).
         hot = (rows[:, None] == jnp.arange(num_freqs)[None, :]) \

@@ -6,11 +6,11 @@ window of nperseg = 0.16*fs samples, hop = nperseg//steps_per_symbol,
 nfft = fs/6.25 * bins_per_tone, 'spectrum' scaling (|X|^2 / sum(win)^2),
 10*log10(1e-12 + .) dB, positive-frequency half.
 
-TPU-first design: the transform is expressed as real matmuls against
-constant cos/sin DFT matrices — they run on the MXU (the FFT op lowers to
-scalar-ish code on TPU), need no zero-padding of frames to nfft (the DFT
-matrix already encodes the oversampled bin spacing), and fold the Hann
-window in for free.
+Design: the transform is expressed as real matmuls against constant
+cos/sin DFT matrices — they run on the matrix units, need no zero-padding
+of frames to nfft (the DFT matrix already encodes the oversampled bin
+spacing), and fold the Hann window in for free.  (Whether jnp.fft beats
+them on the GPU is open, ROADMAP §1.6.)
 
 For the standard FT8 geometry (hop = nperseg/time_osr exactly and
 nfft = freq_osr * nperseg exactly — true whenever 0.16*fs and fs/6.25 are
@@ -32,8 +32,7 @@ For geometries where those divisibility conditions fail, ``backend=
 "matmul"`` computes dense per-frame window-fused DFT matmuls, and for very
 large configurations where DFT matrices stop paying off, ``backend="fft"``
 switches to jnp.fft.  Complex input (drift-correction path) is carried as
-stacked (..., n, 2) float32 [real, imag] — complex arrays cannot cross the
-host<->device boundary on this TPU backend.
+stacked (..., n, 2) float32 [real, imag] (see ops/gfsk.py).
 """
 
 from __future__ import annotations
@@ -156,33 +155,27 @@ def _block_combine_phases(p: WaterfallParams):
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
-# DFT matmul precision.  DEFAULT (one bf16 pass) is the decode default:
-# bf16 input rounding perturbs a power cell ~0.5 % (~0.02 dB) — far below
-# any real capture's noise floor — and the decode is measured
-# MASK-IDENTICAL to HIGH over 512 slots at each of -20/-21/-22 dB on v5e
-# (cliff geometry, fs 12 kHz; +2 net decodes at -22), at 2.1x the DFT
-# stage throughput (3 MXU passes -> 1).  Its only real deviation is on
-# deep SPECTRAL NULLS of noiseless synthetic signals (~37 dB shallower
-# nulls), which carry no decode information and never survive a noise
-# floor; for instrument-grade dB readings (scipy-parity plots, golden
-# comparisons) set FT8_DFT_PRECISION=high (~1e-3 dB, 3 passes) or
-# =highest (exact f32, 6 passes), or pass precision= explicitly.
-_DFT_PRECISION = {
-    "highest": jax.lax.Precision.HIGHEST,
-    "high": jax.lax.Precision.HIGH,
-    "default": jax.lax.Precision.DEFAULT,
-}[__import__("os").environ.get("FT8_DFT_PRECISION", "default").lower()]
-
+# DFT matmul precision: the FT8_DFT_PRECISION knob (utils/backend.py).
+# The CPU default is DEFAULT, which is exact float32 there.  The GPU
+# default is the bf16x3 algorithm (three bf16 passes, f32 accumulation):
+# at DEFAULT the GPU rounds the operands to TF32, and cells in deep
+# spectral nulls then deviate from the CPU grid by up to ~0.5 dB
+# (tests/gpu_checks.py check_waterfall_grids; PERF.md), while bf16x3
+# holds every cell within 60 dB of the slot peak to ~0.01 dB for about
+# twice the DFT time.  "high" is TF32 on the GPU too; "highest" is true
+# float32.  A `precision=` argument overrides the knob.
 _PRECISIONS = {
     "highest": jax.lax.Precision.HIGHEST,
     "high": jax.lax.Precision.HIGH,
     "default": jax.lax.Precision.DEFAULT,
+    "bf16x3": jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3,
 }
 
 
 def _resolve_precision(precision):
     if precision is None:
-        return _DFT_PRECISION
+        from ..utils.backend import knob
+        precision = knob("FT8_DFT_PRECISION")
     if isinstance(precision, str):
         return _PRECISIONS[precision.lower()]
     return precision
@@ -194,8 +187,7 @@ def _block_spectrum(wave: jnp.ndarray, p: WaterfallParams, num_frames: int,
 
     Kx = num_freq_bins + 2*freq_osr (stencil halo), nb = num_frames +
     time_osr - 1 blocks.  Block-major layout keeps the matmul minor
-    dimension large and 128-friendly (Kx) — measured faster than the
-    bin-major transpose on TPU.
+    dimension large (Kx).
     """
     precision = _resolve_precision(precision)
     nb = num_frames + p.time_osr - 1
@@ -249,7 +241,7 @@ def _power_spectrum(frames_r: jnp.ndarray, frames_i, p: WaterfallParams,
         cos_m = jnp.asarray(cos_m)
         sin_m = jnp.asarray(sin_m)
 
-        # precision trade: see the _DFT_PRECISION note (nulls vs speed)
+        # precision: see the _PRECISIONS note
         prec = _resolve_precision(precision)
 
         def mm(a, b):
@@ -263,7 +255,7 @@ def _power_spectrum(frames_r: jnp.ndarray, frames_i, p: WaterfallParams,
         ir = mm(frames_i, cos_m)
         ii = mm(frames_i, sin_m)
         return (rr - ii) ** 2 + (ri + ir) ** 2
-    # fft backend: complex compute is fine inside jit on this TPU
+    # fft backend: complex compute inside jit
     win = jnp.asarray(_hann_periodic(p.nperseg).astype(np.float32))
     if frames_i is None:
         spec = jnp.fft.rfft(frames_r * win, n=p.nfft, axis=-1)
@@ -330,9 +322,10 @@ def _block_boxcar_tf(frames_re_im, p: WaterfallParams,
 
     With this grid, matched-filter LLR extraction is a tiny power
     gather (ops/llr.py extract_llrs_matched_grid) instead of the
-    per-candidate spectra column gathers — and the fused Pallas front
-    (ops/waterfall_pallas.py) emits the grid almost for free, since
-    the Hann combine's `u` for frame t IS this grid's row t + tau - 1.
+    per-candidate spectra column gathers — and the grid costs little
+    beside the Hann waterfall, since the Hann combine's `u` for frame t
+    IS this grid's row t + tau - 1 (both derive from one block
+    spectrum, demod/decode.py _front_slot_tf).
     """
     pr, pi = frames_re_im
     tau, phi = p.time_osr, p.freq_osr
@@ -378,7 +371,7 @@ def waterfall_real(wave: jnp.ndarray, p: WaterfallParams, num_frames: int,
     """Real audio (..., n) -> dB waterfall (..., nfft//2, num_frames).
 
     precision: "default" | "high" | "highest" DFT-matmul precision; None
-    uses the module default (see _DFT_PRECISION note)."""
+    uses the FT8_DFT_PRECISION knob (see the _PRECISIONS note)."""
     backend = _pick_backend(p, backend)
     if backend == "block":
         return _block_waterfall(
@@ -428,7 +421,7 @@ def waterfall_real_band(wave: jnp.ndarray, p: WaterfallParams,
                                 axis=-1)
 
         def mm(a, b):
-            return jnp.matmul(a, b, precision=_DFT_PRECISION,
+            return jnp.matmul(a, b, precision=_resolve_precision(None),
                               preferred_element_type=jnp.float32)
 
         pr = mm(blocks, slc(_pad_cols(cos_m, total)))
@@ -459,7 +452,7 @@ def waterfall_real_band(wave: jnp.ndarray, p: WaterfallParams,
                                 axis=-1)
 
         def mm(a, b):
-            return jnp.matmul(a, b, precision=_DFT_PRECISION,
+            return jnp.matmul(a, b, precision=_resolve_precision(None),
                               preferred_element_type=jnp.float32)
 
         rr = mm(frames, slc(_pad_cols(cos_m, total)))

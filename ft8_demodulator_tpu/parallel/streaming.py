@@ -4,8 +4,8 @@ The sequence-parallel path (SURVEY §2.3): a long audio stream is split into
 equal blocks sharded over the mesh's ``stream`` axis; independent channels
 shard over ``channel``.  Each block needs to see one full FT8 frame
 (79 symbols) past its right edge so transmissions straddling a block
-boundary decode exactly once — the halo travels left over ICI with a single
-``jax.lax.ppermute`` per step, the TPU-native equivalent of the reference's
+boundary decode exactly once — the halo travels left between devices with a
+single ``jax.lax.ppermute`` per step, the sharded equivalent of the reference's
 "read the neighbouring samples from the same numpy array" (it has no
 streaming mode at all; nearest analog is the .npy stage chaining,
 src/tests/channel/test_signal_processing.py:52).

@@ -2,7 +2,7 @@
 
 Everything here is **host-side NumPy**, computed once at import time.  The
 decode/encode kernels pull these tables in as constant device arrays, so the
-GF(2) algebra (CRC, LDPC encode) becomes plain matrix multiplies on the MXU
+GF(2) algebra (CRC, LDPC encode) becomes plain matrix multiplies
 instead of the reference's bit-serial Python loops
 (reference: src/ft8_tools/ft8_generator/crc.py:9, ldpc.py:104).
 

@@ -1,6 +1,6 @@
 """FT8 encode path: payload bytes -> CRC -> LDPC codeword -> 79 tone ids.
 
-TPU-first design: the whole bit pipeline is linear over GF(2), so encode is a
+Vectorised design: the whole bit pipeline is linear over GF(2), so encode is a
 single f32 matmul against a (174, 77) constant matrix followed by a mod-2 and
 a Gray-map gather.  Everything is batch-first and vmap/jit friendly; there are
 no per-bit Python loops (contrast the reference's bit-serial chain,

@@ -7,7 +7,7 @@ Real FT8 traffic is text — "CQ K1ABC FN42" — so a user switching from
 WSJT-X needs the pack/unpack layer to generate beacons and read decodes.
 
 This codec is host-side pure Python by design: message packing is string
-processing (like SGP4 TLE parsing in channel/), not a TPU op; the packed
+processing (like SGP4 TLE parsing in channel/), not a device op; the packed
 10-byte payload is what enters the jitted encode/decode pipelines.
 
 Supported message types (i3 = last 3 payload bits; n3 = 3 bits before it

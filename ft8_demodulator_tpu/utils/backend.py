@@ -1,42 +1,82 @@
-"""Shared backend-preference resolution for env-switchable compute paths.
+"""The one module that knows the platform.
 
-Several hot-path ops ship two implementations — a platform-tuned default
-(MXU sync matmuls, the fused Pallas waterfall) and a portable/exact one —
-selected by an env var with a per-platform default.  The probe is lazy:
-``jax.default_backend()`` initialises the platform, which must never
-happen at library import time.
+The decoder runs on two platforms: the CPU (tests, reference runs, the
+comparison backend) and an NVIDIA GPU.  Each hot-path choice that
+differs between them is a knob with a per-platform default in
+``KNOBS``; an environment variable of the knob's name overrides the
+default.  Callers ask :func:`knob` — no other module inspects the
+platform.
 
-Callers layer their own APPLICABILITY checks on top of the preference
-(e.g. ops/waterfall_pallas.py ``fused_waterfall_ok`` gates on geometry
-VMEM fit); this helper only answers "what does the user/platform want".
+The platform is probed lazily: ``jax.default_backend()`` initialises
+the backend, which must never happen at library import time.  Inside
+``jax.default_device(cpu_device)`` the platform is the CPU, so a
+comparison decode on the host picks the CPU column of the table.
 """
 
 from __future__ import annotations
 
-__all__ = ["resolve_backend"]
+import os
+
+__all__ = ["KNOBS", "platform", "knob"]
+
+# knob -> (per-platform default, allowed values)
+KNOBS: dict[str, tuple[dict[str, str], tuple[str, ...]]] = {
+    # sync score grid: shifted-slice stencil (exact f32) or the stencil
+    # folded into per-residue matmuls (ops/sync.py sync_scores_tf_mxu)
+    "FT8_SYNC_BACKEND": ({"cpu": "stencil", "gpu": "mxu"},
+                         ("mxu", "stencil")),
+    # MF-first front of decode_slots: matched-filter LLRs gathered from
+    # the raw block spectra per candidate ("spectra") or read from the
+    # boxcar power grid ("grid"); spectra measured faster on the H100
+    # (PERF.md)
+    "FT8_MF_FRONT": ({"cpu": "spectra", "gpu": "spectra"},
+                     ("grid", "spectra")),
+    # DFT matmul precision (ops/waterfall.py _PRECISIONS): DEFAULT is
+    # exact f32 on the CPU; on the GPU it is TF32, which misses the
+    # 0.1 dB grid tolerance in deep spectral nulls, so the GPU takes the
+    # bf16x3 algorithm (PERF.md)
+    "FT8_DFT_PRECISION": ({"cpu": "default", "gpu": "bf16x3"},
+                          ("default", "high", "highest", "bf16x3")),
+    # OSD only on BP-failed candidates ("on") or on every row ("off")
+    "FT8_OSD_GATE": ({"cpu": "on", "gpu": "on"}, ("on", "off")),
+    # OSD GF(2) elimination: vmapped lax.while_loop ("jnp") or the Pallas
+    # kernel compiled through Triton (ops/osd_triton.py)
+    "FT8_OSD_ELIM": ({"cpu": "jnp", "gpu": "triton"}, ("jnp", "triton")),
+}
 
 
-def resolve_backend(env_value: str, accel_default: str, cpu_default: str,
-                    allowed: tuple[str, ...] | None = None) -> str:
-    """env override if set, else per-platform default (CPU vs anything
-    else); `cpu_default` also covers the no-backend-available case.
+def platform() -> str:
+    """"cpu" or "gpu" — the platform new computations run on.
 
-    `allowed` (recommended) validates the override: a typo like
-    ``FT8_SYNC_BACKEND=mxuu`` or a stray trailing space would otherwise
-    silently fail every downstream equality check and fall back to the
-    other backend, defeating the override the operator thought they set
-    (ADVICE r4).  Whitespace is stripped; unknown values raise.
+    Raises on any other platform: an unknown device gets no default.
     """
-    env_value = env_value.strip()
-    if env_value:
-        if allowed is not None and env_value not in allowed:
-            raise ValueError(
-                f"unknown backend override {env_value!r}: expected one of "
-                f"{sorted(allowed)}")
-        return env_value
-    try:
-        import jax
+    import jax
+
+    dev = jax.config.jax_default_device
+    if dev is None:
         plat = jax.default_backend()
-    except Exception:
-        return cpu_default
-    return cpu_default if plat == "cpu" else accel_default
+    else:
+        plat = dev if isinstance(dev, str) else dev.platform
+    plat = {"cuda": "gpu"}.get(plat, plat)
+    if plat not in ("cpu", "gpu"):
+        raise RuntimeError(
+            f"unsupported platform {plat!r}: this decoder runs on the CPU "
+            "or an NVIDIA GPU")
+    return plat
+
+
+def knob(name: str) -> str:
+    """Environment override of `name` if set, else its platform default.
+
+    Overrides are validated: a typo like ``FT8_SYNC_BACKEND=mxuu`` would
+    otherwise silently fall back to the other arm.  Whitespace and case
+    are ignored; unknown values raise.
+    """
+    defaults, allowed = KNOBS[name]
+    value = os.environ.get(name, "").strip().lower()
+    if not value:
+        return defaults[platform()]
+    if value not in allowed:
+        raise ValueError(f"unknown {name} value {value!r}: expected one of "
+                         f"{sorted(allowed)}")
+    return value

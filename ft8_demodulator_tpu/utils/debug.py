@@ -1,6 +1,6 @@
 """NaN debugging — the framework's analog of the race-detection row in
 SURVEY §5 (the reference is single-threaded NumPy and has neither; the
-planned TPU-native substitute is ``jax_debug_nans`` wiring).
+planned JAX substitute is ``jax_debug_nans`` wiring).
 
 When enabled, every jitted decode stage re-runs op-by-op on the first NaN it
 produces and raises with the offending primitive — the standard JAX

@@ -14,7 +14,6 @@ def test_satellite_beacon_demo_runs_end_to_end():
         [sys.executable, os.path.join(REPO, "examples",
                                       "satellite_beacon_demo.py")],
         capture_output=True, text=True, timeout=600,
-        env={**os.environ, "JAX_PLATFORMS": ""},
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "stacked decode : 'CQ PI4THD JO22'" in out.stdout

@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from ft8_demodulator_tpu.ops.ldpc_decode import bp_decode_batch, ldpc_check
 from ft8_demodulator_tpu.ops.osd import osd_decode_batch, osd_decode_masked
@@ -79,26 +80,72 @@ def test_decode_with_osd_recovers_what_bp_alone_cannot(goldens):
     assert want in deep
 
 
-def test_pallas_elimination_matches_jnp_interpret():
-    import jax
-    import jax.numpy as jnp
-
+def _packed_bases(n, seed):
+    """(n, 91, 6) column-permuted packed bases of random reliability
+    orders (ops/osd.py _permute_pack)."""
     from ft8_demodulator_tpu.ops import osd as O
 
-    rng = np.random.default_rng(8)
-    llr = jnp.asarray((rng.standard_normal((9, 174)) * 3).astype(np.float32))
+    rng = np.random.default_rng(seed)
+    llr = jnp.asarray((rng.standard_normal((n, 174)) * 3).astype(np.float32))
     order = jnp.argsort(-jnp.abs(llr), axis=-1).astype(jnp.int32)
     ranks = jnp.argsort(order, axis=-1).astype(jnp.int32)
-    a_packed = O._permute_pack(ranks)
-    # the matmul permute+pack must equal the reference gather + bit-pack
+    return O._permute_pack(ranks), order
+
+
+def test_pallas_elimination_matches_jnp_interpret():
+    """The matmul permute+pack equals the gather + bit-pack reference, and
+    the Triton elimination kernel (Pallas interpreter) equals the jnp
+    while-loop."""
+    import jax
+
+    from ft8_demodulator_tpu.ops import osd as O
+    from ft8_demodulator_tpu.ops.osd_triton import reduce_basis_triton
+
+    a_packed, order = _packed_bases(9, 8)
     ref_bits = jnp.swapaxes(O._BASIS_BITS[:, order], 0, 1)
     aug = jnp.broadcast_to(jnp.asarray(O._ROW_SYNDROMES_NP)[None],
                            (9, 91, 14))
     ref_packed = O._pack(jnp.concatenate([ref_bits, aug], axis=-1))
     assert bool(jnp.all(a_packed == ref_packed))
     r1, p1 = jax.vmap(O._reduce_basis_packed)(a_packed)
-    r2, p2 = O._reduce_basis_pallas_batch(a_packed, interpret=True)
+    r2, p2 = reduce_basis_triton(a_packed, interpret=True)
     assert bool(jnp.all(r1 == r2)) and bool(jnp.all(p1 == p2))
+
+
+@pytest.mark.parametrize("batch", [1, 37, 128, 300])
+def test_triton_elimination_batches_interpret(batch):
+    """One program per candidate at any batch size, the output cut back
+    from the kernel's padded rows and words."""
+    import jax
+
+    from ft8_demodulator_tpu.ops import osd as O
+    from ft8_demodulator_tpu.ops.osd_triton import reduce_basis_triton
+
+    a_packed, _ = _packed_bases(batch, 100 + batch)
+    r1, p1 = jax.vmap(O._reduce_basis_packed)(a_packed)
+    r2, p2 = reduce_basis_triton(a_packed, interpret=True)
+    assert r2.shape == (batch, 91, 6) and p2.shape == (batch, 91)
+    np.testing.assert_array_equal(np.asarray(r1), np.asarray(r2))
+    np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
+
+
+def test_triton_elimination_rank_deficient_interpret():
+    """A rank-deficient basis never places 91 pivots: its program runs
+    all 174 columns while full-rank neighbours exit early, and every
+    candidate still equals the jnp elimination."""
+    import jax
+
+    from ft8_demodulator_tpu.ops import osd as O
+    from ft8_demodulator_tpu.ops.osd_triton import reduce_basis_triton
+
+    a_packed, _ = _packed_bases(6, 9)
+    a_packed = a_packed.at[2, 10:14].set(a_packed[2, 3])   # rank 87
+    r1, p1 = jax.vmap(O._reduce_basis_packed)(a_packed)
+    r2, p2 = reduce_basis_triton(a_packed, interpret=True)
+    np.testing.assert_array_equal(np.asarray(r1), np.asarray(r2))
+    np.testing.assert_array_equal(np.asarray(p1), np.asarray(p2))
+    # the duplicated rows reduce to zero and never hold a pivot
+    assert not np.asarray(r2[2, 10:14]).any()
 
 
 def test_elimination_early_exit_is_exact():

@@ -6,8 +6,8 @@ _block_waterfall_tf -> sync_scores_tf -> find_candidates_tf ->
 extract_llrs_tf.  Every stage must match its (F, T) counterpart
 BIT-identically — same adds in the same order, selection matmuls on the
 same cells, same top-k tie order — so the layout change can never move a
-decode.  (tests run on CPU; tests/test_tpu.py re-checks sync/LLR parity
-on the chip where DEFAULT matmuls really are bf16.)
+decode.  (tests run on CPU; tests/test_gpu.py checks the decodes on the
+GPU, where DEFAULT matmuls are TF32.)
 """
 
 import numpy as np
